@@ -2,7 +2,7 @@
 # binaries, Makefile:1-41; here variants are runtime flags, so the targets
 # are workflows).
 
-.PHONY: test native bench gallery realtime clean
+.PHONY: test native bench smoke gallery realtime clean
 
 native:
 	$(MAKE) -C native
@@ -13,12 +13,15 @@ test:
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 gallery:
-	python -m raytracinggpu_tpu.cli render 32 5 --preset array_bvh \
-	    --traversal pallas --out gallery/array_bvh.png
+	python -m raytracinggpu.cli render 32 5 --preset array_bvh \
+	    --out gallery/array_bvh.png
 
 realtime:
-	python -m raytracinggpu_tpu.cli realtime --frames 30 --out-dir gallery/frames
+	python -m raytracinggpu.cli realtime --frames 30 --out-dir gallery/frames
 
 clean:
 	$(MAKE) -C native clean

@@ -1,11 +1,11 @@
-// Native host runtime for raytracinggpu_tpu.
+// Native host runtime for raytracinggpu.
 //
 // The reference keeps its host pipeline in C++ (OBJ parsing
 // TriangleMeshHost::readOBJ global_launcher.cu:378-695, BVH construction
 // optimized.cu:476-534, PNG output via stb_image_write).  This library is the
-// TPU framework's native equivalent: a fast OBJ parser, the BVH builder with
+// framework's native equivalent: a fast OBJ parser, the BVH builder with
 // the reference's exact split semantics, and a zlib PNG encoder — exposed via
-// a plain C ABI consumed through ctypes (raytracinggpu_tpu/native.py).  The
+// a plain C ABI consumed through ctypes (raytracinggpu/native.py).  The
 // numpy implementations remain the canonical reference; both are tested for
 // equality.
 //

@@ -8,9 +8,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from raytracinggpu_tpu.render.image_io import tonemap, write_png  # noqa: E402
-from raytracinggpu_tpu.render.pipeline import render_preset_frame  # noqa: E402
-from raytracinggpu_tpu.scene.presets import PRESET_NAMES, build_preset  # noqa: E402
+from raytracinggpu.render.image_io import tonemap, write_png  # noqa: E402
+from raytracinggpu.render.pipeline import render_preset_frame  # noqa: E402
+from raytracinggpu.scene.presets import PRESET_NAMES, build_preset  # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 

@@ -6,22 +6,17 @@ traversal on the CPU backend — the exact configuration the CI test
 golden is the 16x16 grid of per-tile mean radiances
 (tests/golden/<preset>_256_tiles.npy, (16,16,3) float32).  At 28x the
 pixel coverage of the 48^2 bitwise goldens this catches shading/preset
-regressions the low-res net can't (VERDICT r1 weak item 7).
+regressions the low-res net cannot.
 
-Why same-platform goldens: CPU and TPU renders of the SAME sample stream
-agree bitwise on purely-diffuse scenes (preset `cpu`: tile means match to
-2e-6 relative), but any preset with specular/refractive materials diverges
-chaotically — platform transcendental/rounding differences flip
-material-branch decisions taken against RNG uniforms, so single samples
-follow entirely different paths (measured: global mean +3.6%, per-tile p99
-0.55 relative at spp2).  A cross-platform golden would need thresholds too
-slack to catch real regressions.  The cross-platform/cross-kernel deltas
-are instead RECORDED as evidence by `--tpu-check` (run on the TPU host):
-it renders the same configs with the production pairs kernel on the real
-chip and writes the measured deviation statistics to
-gallery/midres_platform_delta.json.
+Why same-platform goldens: renders of the SAME sample stream on two
+platforms agree closely on purely-diffuse scenes, but any preset with
+specular/refractive materials diverges chaotically — platform
+transcendental/rounding differences flip material-branch decisions taken
+against RNG uniforms, so single samples follow entirely different paths.
+A cross-platform golden would need thresholds too slack to catch real
+regressions.
 
-Run: python tests/regen_goldens_midres.py [--tpu-check]
+Run: python tests/regen_goldens_midres.py
 """
 import os
 import sys
@@ -41,56 +36,22 @@ GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(GOLDEN_DIR)))
-    tpu_check = "--tpu-check" in sys.argv
 
     import jax
 
-    if not tpu_check:
-        jax.config.update("jax_platforms", "cpu")
-    from raytracinggpu_tpu.bench._timing import setup_cache
+    jax.config.update("jax_platforms", "cpu")
+    from raytracinggpu.utils.cache import setup_cache
 
     setup_cache()
-    from raytracinggpu_tpu.render.pipeline import render_preset_frame
-    from raytracinggpu_tpu.scene.presets import PRESET_NAMES, build_preset
+    from raytracinggpu.render.pipeline import render_preset_frame
+    from raytracinggpu.scene.presets import PRESET_NAMES, build_preset
 
-    if tpu_check:
-        deltas = {}
-        for preset in PRESET_NAMES:
-            golden = np.load(
-                os.path.join(GOLDEN_DIR, f"{preset}_256_tiles.npy"))
-            cfg, tables = build_preset(
-                preset, width=MIDRES, height=MIDRES, spp=2, max_depth=2)
-            img, _ = render_preset_frame(tables, cfg, seed=0)
-            tm = tile_means(np.asarray(img))
-            scale = float(np.abs(golden).mean())
-            err = np.abs(tm - golden) / scale
-            deltas[preset] = {
-                "gmean_rel": round(float((tm.mean() - golden.mean()) / scale), 6),
-                "tile_p99_rel": round(float(np.quantile(err, 0.99)), 6),
-                "tile_max_rel": round(float(err.max()), 6),
-            }
-            print(preset, deltas[preset], flush=True)
-        import json
-
-        out = os.path.join(
-            os.path.dirname(GOLDEN_DIR), "..", "gallery",
-            "midres_platform_delta.json")
-        with open(os.path.abspath(out), "w") as f:
-            json.dump({
-                "_": "TPU pairs-kernel render vs CPU dense-oracle golden, "
-                     "256^2 spp2 d2, same seed; deviations are "
-                     "platform-float material-branch flips (see "
-                     "tests/regen_goldens_midres.py docstring)",
-                **deltas,
-            }, f, indent=1)
-        print("wrote", os.path.abspath(out))
-    else:
-        assert jax.devices()[0].platform == "cpu"
-        for preset in PRESET_NAMES:
-            cfg, tables = build_preset(
-                preset, width=MIDRES, height=MIDRES, spp=2, max_depth=2,
-                traversal="dense")
-            img, _ = render_preset_frame(tables, cfg, seed=0)
-            tm = tile_means(np.asarray(img)).astype(np.float32)
-            np.save(os.path.join(GOLDEN_DIR, f"{preset}_256_tiles.npy"), tm)
-            print(preset, "midres golden regenerated; mean", tm.mean())
+    assert jax.devices()[0].platform == "cpu"
+    for preset in PRESET_NAMES:
+        cfg, tables = build_preset(
+            preset, width=MIDRES, height=MIDRES, spp=2, max_depth=2,
+            traversal="dense")
+        img, _ = render_preset_frame(tables, cfg, seed=0)
+        tm = tile_means(np.asarray(img)).astype(np.float32)
+        np.save(os.path.join(GOLDEN_DIR, f"{preset}_256_tiles.npy"), tm)
+        print(preset, "midres golden regenerated; mean", tm.mean())

@@ -1,7 +1,7 @@
 """High-level Renderer facade."""
 import numpy as np
 
-from raytracinggpu_tpu import Renderer
+from raytracinggpu import Renderer
 
 
 def test_render_and_save(tmp_path):
@@ -30,7 +30,7 @@ def test_custom_obj(tmp_path):
     p = tmp_path / "tri.obj"
     p.write_text("v -5 -8 -5\nv 5 -8 -5\nv 0 -8 5\nf 1 2 3\n")
     r = Renderer("array_bvh", obj_path=str(p), width=12, height=12,
-                 spp=1, max_depth=1, traversal="pallas")
+                 spp=1, max_depth=1, traversal="walk")
     img = r.render()
     assert img.shape == (12, 12, 3)
 
@@ -49,7 +49,7 @@ def test_unknown_preset_is_value_error():
     KeyError from the mesh-transform table before preset validation."""
     import pytest
 
-    from raytracinggpu_tpu.api import Renderer
+    from raytracinggpu.api import Renderer
 
     with pytest.raises(ValueError, match="unknown preset"):
         Renderer("bogus", bvh_builder="lbvh")
@@ -62,7 +62,7 @@ def test_smooth_preset_without_normals_falls_back(tmp_path):
     import numpy as np
     import pytest
 
-    from raytracinggpu_tpu.api import Renderer
+    from raytracinggpu.api import Renderer
 
     p = tmp_path / "plain.obj"
     p.write_text("v -3 0 10\nv 3 0 10\nv 0 4 10\nf 1 2 3\n")

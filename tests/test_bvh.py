@@ -1,13 +1,12 @@
-"""BVH builder: structural invariants, reference flat layout, skip links,
-cluster cut (SURVEY.md §4's required checks — the reference has none)."""
+"""BVH builder: structural invariants, reference flat layout, skip links
+(SURVEY.md §4's required checks — the reference has none)."""
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu.accel.bvh import (
+from raytracinggpu.accel.bvh import (
     LEAF_MIN_TRIS,
     build_bvh,
     check_invariants,
-    cluster_cut,
 )
 
 
@@ -81,27 +80,6 @@ def test_skip_links_preorder(rng):
         return subtree_end(bvh.right[i])
     for i in range(n):
         assert bvh.skip[i] == subtree_end(i)
-
-
-def test_cluster_cut_partitions(cat_mesh_raw):
-    obj = cat_mesh_raw
-    A = obj.vertices[obj.vtx[:, 0]]
-    B = obj.vertices[obj.vtx[:, 1]]
-    C = obj.vertices[obj.vtx[:, 2]]
-    bvh = build_bvh(A, B, C)
-    cut = cluster_cut(bvh, max_tris=64)
-    T = len(bvh.order)
-    # Contiguous, ordered, exhaustive partition of [0, T).
-    assert cut.starts[0] == 0 and cut.ends[-1] == T
-    np.testing.assert_array_equal(cut.starts[1:], cut.ends[:-1])
-    assert (cut.ends - cut.starts <= 64).all() or (bvh.right == -1).any()
-    assert cut.cap <= 64 or cut.cap == (cut.ends - cut.starts).max()
-    # Cluster AABBs contain their triangles.
-    for k in range(len(cut.starts)):
-        ids = bvh.order[cut.starts[k] : cut.ends[k]]
-        pts = np.concatenate([A[ids], B[ids], C[ids]])
-        assert (pts.min(0) >= cut.mn[k] - 1e-4).all()
-        assert (pts.max(0) <= cut.mx[k] + 1e-4).all()
 
 
 @pytest.mark.parametrize("n", [5, 6, 17])

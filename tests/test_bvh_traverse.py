@@ -2,16 +2,16 @@
 import numpy as np
 import jax.numpy as jnp
 
-from raytracinggpu_tpu.core.vec import Vec3
-from raytracinggpu_tpu.ops.bvh_traverse import intersect_tris_bvh
-from raytracinggpu_tpu.ops.sphere import INF
-from raytracinggpu_tpu.ops.triangle import build_tri_tables, intersect_tris_dense
+from raytracinggpu.core.vec import Vec3
+from raytracinggpu.ops.bvh_traverse import intersect_tris_bvh
+from raytracinggpu.ops.sphere import INF
+from raytracinggpu.ops.triangle import build_tri_tables, intersect_tris_dense
 
 
 def test_bvh_traversal_matches_dense_cat(cat_mesh_raw, rng):
-    from raytracinggpu_tpu.scene.mesh import build_mesh
-    from raytracinggpu_tpu.scene.scene import build_scene_tables
-    from raytracinggpu_tpu.scene.presets import wall_spheres
+    from raytracinggpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.scene import build_scene_tables
+    from raytracinggpu.scene.presets import wall_spheres
 
     mesh = build_mesh(cat_mesh_raw)
     spheres, mats = wall_spheres(990.0)
@@ -48,9 +48,9 @@ def test_bvh_mode_full_trace(cat_mesh_raw, rng):
     import dataclasses
     import jax
 
-    from raytracinggpu_tpu.integrator.wavefront import trace
-    from raytracinggpu_tpu.scene.mesh import build_mesh
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.integrator.wavefront import trace
+    from raytracinggpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.presets import build_preset
     from tests.test_integrator import _camera_rays, _vec
 
     mesh = build_mesh(cat_mesh_raw)

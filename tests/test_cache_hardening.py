@@ -1,16 +1,21 @@
-"""Persistent-compilation-cache hardening (VERDICT r3 weak #3).
+"""The persistent compilation cache helper (utils/cache.py).
 
-A poisoned or unwritable cache dir once aborted a whole suite run inside
-JAX's cache write path.  setup_cache must degrade to cache-OFF (read-only
-dir), honor the empty-string escape hatch, and tolerate corrupt entries
-(demoted to warnings) — jitted work keeps running in every case.
+A poisoned or unwritable cache dir must not abort a run inside JAX's cache
+write path.  setup_cache must degrade to cache-OFF (read-only dir), honor
+the empty-string escape hatch, tolerate corrupt entries (demoted to
+warnings), use exactly the directory JAX_COMPILATION_CACHE_DIR names, and
+be the only code that sets a cache path.
 """
+import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracinggpu_tpu.bench._timing import setup_cache
+from raytracinggpu.utils.cache import CHECKOUT_CACHE, setup_cache
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -88,6 +93,27 @@ def test_corrupted_cache_entries_are_nonfatal(tmp_path, cache_env):
 
 def test_default_repo_cache_still_engages(cache_env):
     cache_env.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
-    setup_cache()
-    assert jax.config.jax_compilation_cache_dir is not None
-    assert jax.config.jax_compilation_cache_dir.endswith(".jax_cache")
+    assert setup_cache() == CHECKOUT_CACHE
+    assert jax.config.jax_compilation_cache_dir == CHECKOUT_CACHE
+    assert CHECKOUT_CACHE == str(REPO / ".jax_cache")
+
+
+def test_env_dir_is_used_verbatim(tmp_path, cache_env):
+    d = tmp_path / "elsewhere" / "cache"
+    cache_env.setenv("JAX_COMPILATION_CACHE_DIR", str(d))
+    assert setup_cache() == str(d)
+    assert jax.config.jax_compilation_cache_dir == str(d)
+    assert d.is_dir()
+
+
+def test_no_other_code_sets_a_cache_path():
+    """Only utils/cache.py names the cache config or a cache directory."""
+    sources = [*REPO.glob("*.py"), *(REPO / "raytracinggpu").rglob("*.py")]
+    offenders = [
+        str(p.relative_to(REPO)) for p in sources
+        if p.name != "cache.py"
+        and ("jax_compilation_cache_dir" in p.read_text()
+             or ".jax_cache" in p.read_text())
+    ]
+    assert sources and offenders == []
+    assert os.path.basename(CHECKOUT_CACHE) == ".jax_cache"

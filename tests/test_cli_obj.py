@@ -1,8 +1,8 @@
 """CLI custom-OBJ and LBVH-builder paths."""
 import os
 
-from raytracinggpu_tpu.cli.main import main
-from raytracinggpu_tpu.render.image_io import read_png
+from raytracinggpu.cli.main import main
+from raytracinggpu.render.image_io import read_png
 
 
 def test_render_custom_obj(tmp_path):
@@ -19,7 +19,7 @@ def test_render_custom_obj(tmp_path):
     rc = main([
         "render", "2", "2", "--preset", "array_bvh",
         "--width", "16", "--height", "16",
-        "--obj", str(p), "--traversal", "pallas", "--out", out,
+        "--obj", str(p), "--traversal", "walk", "--out", out,
     ])
     assert rc == 0
     img = read_png(out)
@@ -47,7 +47,7 @@ def test_render_lbvh_builder(tmp_path):
 
 def test_showcase_rejects_custom_obj(tmp_path):
     # CLI must mirror api.Renderer's ValueError: the showcase preset builds
-    # its own scene and would silently ignore --obj (ADVICE round 1).
+    # its own scene and would silently ignore --obj.
     import pytest
 
     p = tmp_path / "quad.obj"

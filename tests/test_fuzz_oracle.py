@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu.integrator.wavefront import trace
-from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
-from raytracinggpu_tpu.scene.presets import make_config, wall_spheres
-from raytracinggpu_tpu.scene.scene import build_scene_tables
+from raytracinggpu.integrator.wavefront import trace
+from raytracinggpu.oracle.numpy_ref import OracleScene
+from raytracinggpu.scene.presets import make_config, wall_spheres
+from raytracinggpu.scene.scene import build_scene_tables
 from tests.test_integrator import _camera_rays, _vec
 
 
@@ -54,7 +54,7 @@ def test_random_sphere_scene_matches_oracle(seed):
 
 @pytest.mark.parametrize("seed", [3, 99])
 def test_random_mesh_matches_oracle(seed):
-    """Random triangle soup + walls, pallas traversal (interpret) vs the
+    """Random triangle soup + walls, walk kernel (interpret) vs the
     oracle's naive intersection."""
     rng = np.random.default_rng(seed)
     T = 200
@@ -62,8 +62,8 @@ def test_random_mesh_matches_oracle(seed):
     B = A + rng.standard_normal((T, 3)).astype(np.float32) * 3
     C = A + rng.standard_normal((T, 3)).astype(np.float32) * 3
 
-    import raytracinggpu_tpu.scene.mesh as meshmod
-    from raytracinggpu_tpu.accel.bvh import build_bvh
+    import raytracinggpu.scene.mesh as meshmod
+    from raytracinggpu.accel.bvh import build_bvh
 
     bvh = build_bvh(A, B, C)
     o = bvh.order
@@ -81,7 +81,7 @@ def test_random_mesh_matches_oracle(seed):
         tris=(A, B, C), mesh_mat=((0.25, 0.25, 0.25), False, 1.0, 1.0),
     )
     cfg = make_config("array_bvh", width=12, height=12, spp=1, max_depth=2,
-                      traversal="pallas")
+                      traversal="walk")
     O, u = _camera_rays(12, 12)
     R = 144
     uniforms = rng.random((2, 2, R)).astype(np.float32) * 0.998 + 1e-3

@@ -1,4 +1,4 @@
-"""Differential tests: TPU wavefront integrator vs the independent NumPy
+"""Differential tests: the JAX wavefront integrator vs the independent NumPy
 oracle, with *identical injected uniforms* so images must match to float
 tolerance (much stronger than Monte-Carlo tolerance).
 """
@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu.core.vec import Vec3
-from raytracinggpu_tpu.integrator.wavefront import intersect_all, trace
-from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
-from raytracinggpu_tpu.scene.presets import make_config, wall_spheres
-from raytracinggpu_tpu.scene.scene import build_scene_tables
+from raytracinggpu.core.vec import Vec3
+from raytracinggpu.integrator.wavefront import intersect_all, trace
+from raytracinggpu.oracle.numpy_ref import OracleScene
+from raytracinggpu.scene.presets import make_config, wall_spheres
+from raytracinggpu.scene.scene import build_scene_tables
 
 
 def _spheres_scene():
@@ -80,8 +80,8 @@ def test_trace_with_cat_mesh_matches_oracle(rng, cat_mesh_raw):
     """Full scene (walls + cat mesh): the oracle uses the *original* OBJ
     triangle order with naive intersection, so this also validates the BVH
     reorder + dense matmul path end to end."""
-    from raytracinggpu_tpu.scene.mesh import build_mesh, rescale
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.scene.mesh import build_mesh, rescale
+    from raytracinggpu.scene.presets import build_preset
     import dataclasses
 
     obj = cat_mesh_raw
@@ -119,14 +119,13 @@ def test_trace_with_cat_mesh_matches_oracle(rng, cat_mesh_raw):
 
 def test_depth_unroll_bitwise_equivalent():
     """depth_unroll (RenderConfig) is a pure scheduling knob: the unrolled
-    lax.scan must produce bit-identical frames.  The TPU default is 8 (the
-    rolled scan's back-edge barrier costs ~8.5% headline, PERF_NOTES.md);
-    the test conftest pins RT_DEPTH_UNROLL=1 for compile speed, so this is
-    the one place the unrolled path is exercised on CPU."""
+    lax.scan must produce bit-identical frames.  The default is 8; the
+    test conftest pins RT_DEPTH_UNROLL=1 for compile speed, so this is the
+    one place the unrolled path is exercised on CPU."""
     import dataclasses
 
-    from raytracinggpu_tpu.render.pipeline import render_preset_frame
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.render.pipeline import render_preset_frame
+    from raytracinggpu.scene.presets import build_preset
 
     cfg, tables = build_preset(
         "array_bvh", width=48, height=48, spp=2, max_depth=3,
@@ -134,32 +133,6 @@ def test_depth_unroll_bitwise_equivalent():
     imgs = []
     for unroll in (1, 3, 8):
         c = dataclasses.replace(cfg, depth_unroll=unroll)
-        img, _ = render_preset_frame(tables, c, seed=0)
-        imgs.append(np.asarray(img))
-    np.testing.assert_array_equal(imgs[0], imgs[1])
-    np.testing.assert_array_equal(imgs[0], imgs[2])
-
-
-def test_compact_min_depth_policy_bitwise_equivalent():
-    """The fully-unrolled pairs path applies a per-depth static compaction
-    policy (pairs_compact_min_depth: d0 casts skip the compact machinery —
-    their activity overflows both ladder tiers so they always fell back to
-    full width anyway).  Policy on/off and the rolled scan must all be
-    bit-identical; compaction is exact by construction."""
-    import dataclasses
-
-    from raytracinggpu_tpu.render.pipeline import render_preset_frame
-    from raytracinggpu_tpu.scene.presets import build_preset
-
-    cfg, tables = build_preset(
-        "array_bvh", width=48, height=48, spp=2, max_depth=3,
-        traversal="pairs")
-    assert cfg.pairs_compact > 0 and cfg.pairs_compact_min_depth == 1
-    imgs = []
-    for over in ({"depth_unroll": 8},                               # policy
-                 {"depth_unroll": 8, "pairs_compact_min_depth": 0},  # all
-                 {"depth_unroll": 1}):                               # scan
-        c = dataclasses.replace(cfg, **over)
         img, _ = render_preset_frame(tables, c, seed=0)
         imgs.append(np.asarray(img))
     np.testing.assert_array_equal(imgs[0], imgs[1])

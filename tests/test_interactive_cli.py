@@ -15,7 +15,7 @@ def test_interactive_quits_on_q(tmp_path):
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
-        "from raytracinggpu_tpu.cli.main import main;"
+        "from raytracinggpu.cli.main import main;"
         "raise SystemExit(main(["
         "'realtime','--preset','showcase','--width','8','--height','8',"
         "'--spp','1','--bounces','1','--frames','50','--interactive',"

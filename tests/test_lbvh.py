@@ -2,10 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from raytracinggpu_tpu.accel.bvh import check_invariants
-from raytracinggpu_tpu.accel.lbvh import build_lbvh, morton_codes
-from raytracinggpu_tpu.core.vec import Vec3
-from raytracinggpu_tpu.ops.sphere import INF
+from raytracinggpu.accel.bvh import check_invariants
+from raytracinggpu.accel.lbvh import build_lbvh, morton_codes
+from raytracinggpu.core.vec import Vec3
+from raytracinggpu.ops.sphere import INF
+from raytracinggpu.ops.walk import intersect_tris_walk
 
 
 def test_morton_ordering_groups_nearby_points():
@@ -41,18 +42,15 @@ def test_lbvh_invariants_cat(cat_mesh_raw):
 
 
 def test_lbvh_hit_parity_with_reference_builder(cat_mesh_raw, rng):
-    """Same mesh, both builders, pallas traversal: identical hit results."""
-    from raytracinggpu_tpu.ops.pallas_trace import (
-        build_pallas_tables,
-        intersect_tris_pallas,
-    )
-    from raytracinggpu_tpu.scene.mesh import build_mesh
+    """Same mesh, both builders, walk kernel: identical hit results."""
+    from raytracinggpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.presets import build_preset
 
-    m_ref = build_mesh(cat_mesh_raw, builder="reference")
-    m_lb = build_mesh(cat_mesh_raw, builder="lbvh")
-
-    tab_ref = build_pallas_tables(m_ref.A, m_ref.B, m_ref.C)
-    tab_lb = build_pallas_tables(m_lb.A, m_lb.B, m_lb.C)
+    tabs = [
+        build_preset("array_bvh", mesh=build_mesh(cat_mesh_raw, builder=b),
+                     width=8, height=8)[1].walk
+        for b in ("reference", "lbvh")
+    ]
 
     n = 256
     o = rng.uniform(-25, 25, (n, 3)).astype(np.float32)
@@ -61,8 +59,7 @@ def test_lbvh_hit_parity_with_reference_builder(cat_mesh_raw, rng):
     O = Vec3(*(jnp.asarray(o[:, i]) for i in range(3)))
     u = Vec3(*(jnp.asarray(d[:, i]) for i in range(3)))
 
-    h_ref = intersect_tris_pallas(O, u, tab_ref, 1e-4, interpret=True)
-    h_lb = intersect_tris_pallas(O, u, tab_lb, 1e-4, interpret=True)
+    h_ref, h_lb = (intersect_tris_walk(O, u, tab, 1e-4) for tab in tabs)
     t_r, t_l = np.asarray(h_ref.t), np.asarray(h_lb.t)
     np.testing.assert_array_equal(t_r < INF, t_l < INF)
     hit = t_r < INF

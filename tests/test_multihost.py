@@ -8,6 +8,6 @@ a single-process render (see parallel/multihost_demo.py).
 
 
 def test_two_process_multihost():
-    from raytracinggpu_tpu.parallel.multihost_demo import launch
+    from raytracinggpu.parallel.multihost_demo import launch
 
     assert launch(num_processes=2, port=9461) == 0

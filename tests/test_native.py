@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu import native
+from raytracinggpu import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built (make -C native)"
@@ -10,7 +10,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_obj_parse_matches_python(cat_mesh_raw):
-    from raytracinggpu_tpu.scene.obj import CAT_OBJ_PATH, read_obj
+    from raytracinggpu.scene.obj import CAT_OBJ_PATH, read_obj
 
     py = read_obj(CAT_OBJ_PATH, native=False)
     nat = read_obj(CAT_OBJ_PATH, native=True)
@@ -27,7 +27,7 @@ def test_obj_parse_long_polygon_face(tmp_path):
     parser must fan-triangulate ALL corners and reassemble split fgets
     fragments (it previously truncated at 64 corners / 1023 bytes,
     silently dropping triangles)."""
-    from raytracinggpu_tpu.scene.obj import read_obj
+    from raytracinggpu.scene.obj import read_obj
 
     n = 160
     lines = []
@@ -50,7 +50,7 @@ def test_obj_parse_long_polygon_face(tmp_path):
 
 
 def test_obj_parse_embed_transform(cat_mesh_raw):
-    from raytracinggpu_tpu.scene.obj import CAT_OBJ_PATH, read_obj
+    from raytracinggpu.scene.obj import CAT_OBJ_PATH, read_obj
 
     py = read_obj(CAT_OBJ_PATH, embed_transform=True, native=False)
     nat = read_obj(CAT_OBJ_PATH, embed_transform=True, native=True)
@@ -58,7 +58,7 @@ def test_obj_parse_embed_transform(cat_mesh_raw):
 
 
 def test_bvh_build_bit_equal(cat_mesh_raw):
-    from raytracinggpu_tpu.accel.bvh import build_bvh, check_invariants
+    from raytracinggpu.accel.bvh import build_bvh, check_invariants
 
     obj = cat_mesh_raw
     A = obj.vertices[obj.vtx[:, 0]]
@@ -78,7 +78,7 @@ def test_bvh_build_bit_equal(cat_mesh_raw):
 
 
 def test_png_roundtrip(tmp_path):
-    from raytracinggpu_tpu.render.image_io import read_png, write_png
+    from raytracinggpu.render.image_io import read_png, write_png
 
     rgb = (np.random.default_rng(5).random((16, 24, 3)) * 255).astype(np.uint8)
     p = str(tmp_path / "n.png")

@@ -2,8 +2,8 @@
 (readOBJ semantics, global_launcher.cu:378-695)."""
 import numpy as np
 
-from raytracinggpu_tpu.scene.mesh import build_mesh, rescale, rotate_y
-from raytracinggpu_tpu.scene.obj import CAT_OBJ_PATH, read_obj
+from raytracinggpu.scene.mesh import build_mesh, rescale, rotate_y
+from raytracinggpu.scene.obj import CAT_OBJ_PATH, read_obj
 
 
 def test_cat_counts(cat_mesh_raw):
@@ -74,7 +74,7 @@ def test_index_zero_rejected(tmp_path):
     r3 finding) — both parser paths must reject it loudly."""
     import pytest
 
-    from raytracinggpu_tpu.scene.obj import read_obj
+    from raytracinggpu.scene.obj import read_obj
 
     p = tmp_path / "bad.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 0 1 2\n")
@@ -90,7 +90,7 @@ def test_offset_only_rescale_applied(tmp_path):
     previously gated the rescale on scale alone and dropped the offset)."""
     import numpy as np
 
-    from raytracinggpu_tpu.cli.main import main
+    from raytracinggpu.cli.main import main
 
     p = tmp_path / "tri.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")

@@ -5,16 +5,16 @@ import dataclasses
 import jax
 import numpy as np
 
-from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
-from raytracinggpu_tpu.render.image_io import read_png, tonemap, write_png
-from raytracinggpu_tpu.render.pipeline import (
+from raytracinggpu.oracle.numpy_ref import OracleScene
+from raytracinggpu.render.image_io import read_png, tonemap, write_png
+from raytracinggpu.render.pipeline import (
     Camera,
     render_frame,
     render_preset_frame,
     rays_per_frame,
 )
-from raytracinggpu_tpu.scene.presets import make_config, wall_spheres
-from raytracinggpu_tpu.scene.scene import build_scene_tables
+from raytracinggpu.scene.presets import make_config, wall_spheres
+from raytracinggpu.scene.scene import build_scene_tables
 
 
 def _tiny_scene(W=16, H=16, spp=2, depth=2, **over):
@@ -37,7 +37,7 @@ def test_render_matches_oracle_with_same_uniforms():
     img = np.asarray(img)
 
     # Reproduce the exact uniform stream on host.
-    from raytracinggpu_tpu.render.pipeline import row_uniforms
+    from raytracinggpu.render.pipeline import row_uniforms
     import jax.numpy as jnp
 
     spheres, mats = wall_spheres(990.0)
@@ -71,7 +71,7 @@ def test_determinism_same_seed():
 def test_sharded_matches_single_device():
     """8-device (px=4, sp=2) mesh render must be bit-identical to the
     single-device render (sharding-invariant RNG)."""
-    from raytracinggpu_tpu.parallel.sharding import make_mesh, render_frame_sharded
+    from raytracinggpu.parallel.sharding import make_mesh, render_frame_sharded
 
     cfg, tables = _tiny_scene(W=16, H=16, spp=4, depth=2)
     cam = Camera.fixed(cfg.camera_c)

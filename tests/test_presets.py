@@ -4,12 +4,12 @@ every one is pinned here."""
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu.scene.presets import build_preset, make_config
+from raytracinggpu.scene.presets import build_preset, make_config
 
 
 @pytest.fixture(scope="module")
 def preset_cache(cat_mesh_raw):
-    from raytracinggpu_tpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.mesh import build_mesh
 
     cache = {}
 
@@ -67,9 +67,9 @@ def test_wall_albedos(preset_cache):
 def test_mesh_transform_chains(cat_mesh_raw):
     """cpu: v*0.8+(0,-10,0); global/optimized: v*0.48+(0,-10,0);
     array_bvh/realtime: v*0.6+(0,-10,0) (SURVEY.md §2.7)."""
-    from raytracinggpu_tpu.scene.mesh import load_cat_mesh
-    from raytracinggpu_tpu.scene.obj import CAT_OBJ_PATH
-    from raytracinggpu_tpu.scene.presets import _MESH_TRANSFORM
+    from raytracinggpu.scene.mesh import load_cat_mesh
+    from raytracinggpu.scene.obj import CAT_OBJ_PATH
+    from raytracinggpu.scene.presets import _MESH_TRANSFORM
 
     v0 = cat_mesh_raw.vertices
     expect = {
@@ -106,9 +106,9 @@ def test_showcase_refraction_matches_oracle(rng):
     import jax
     import jax.numpy as jnp
 
-    from raytracinggpu_tpu.integrator.wavefront import trace
-    from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
-    from raytracinggpu_tpu.scene.presets import wall_spheres
+    from raytracinggpu.integrator.wavefront import trace
+    from raytracinggpu.oracle.numpy_ref import OracleScene
+    from raytracinggpu.scene.presets import wall_spheres
     from tests.test_integrator import _camera_rays, _vec
 
     cfg, tables = build_preset("showcase", width=24, height=24, spp=1, max_depth=4)
@@ -135,46 +135,3 @@ def test_showcase_refraction_matches_oracle(rng):
     # All three special material branches exercised.
     assert int(np.asarray(stats.mirror).sum()) > 0
     assert int(np.asarray(stats.refract).sum()) > 0
-
-
-def test_pairs_autotune_big_mesh():
-    """Tile-count-adaptive pairs defaults (PERF_NOTES.md §r5): a big mesh
-    flips subgroup 64 -> 16 (measured +35-41%), key_coarse engages only
-    past 1024 tiles, the cat keeps the tuned defaults, and an explicit
-    user override always wins."""
-    from raytracinggpu_tpu.scene.mesh import build_mesh
-    from raytracinggpu_tpu.scene.obj import ObjMesh
-
-    rng = np.random.default_rng(3)
-    n = 20_000  # -> a few hundred tiles: past the subgroup threshold,
-    #             below the key_coarse one
-    V = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
-    B = V + rng.standard_normal((n, 3)).astype(np.float32) * 0.5
-    C = V + rng.standard_normal((n, 3)).astype(np.float32) * 0.5
-    verts = np.concatenate([V, B, C]).astype(np.float32)
-    vtx = np.stack([np.arange(n), np.arange(n) + n, np.arange(n) + 2 * n],
-                   axis=1).astype(np.int32)
-    none = np.full((n, 3), -1, np.int32)
-    obj = ObjMesh(vertices=verts, normals=np.zeros((0, 3), np.float32),
-                  uvs=np.zeros((0, 3), np.float32), vtx=vtx, nrm=none,
-                  uv=none)
-    mesh = build_mesh(obj, builder="lbvh")
-
-    cfg, tables = build_preset("array_bvh", mesh=mesh, width=32, height=32,
-                               spp=1, max_depth=1)
-    nc = int(tables.pairs_mesh.tile_aabb.shape[0])
-    assert nc > 128
-    assert cfg.pairs_subgroup == 16
-    assert cfg.pairs_key_coarse == (32 if nc >= 1024 else 1)
-
-    # explicit override wins over the auto rule
-    cfg2, _ = build_preset("array_bvh", mesh=mesh, width=32, height=32,
-                           spp=1, max_depth=1, pairs_subgroup=64)
-    assert cfg2.pairs_subgroup == 64
-
-    # the cat (31 tiles) keeps the tuned defaults
-    cfg3, tables3 = build_preset("array_bvh", width=32, height=32, spp=1,
-                                 max_depth=1)
-    assert int(tables3.pairs_mesh.tile_aabb.shape[0]) <= 128
-    assert cfg3.pairs_subgroup == 64
-    assert cfg3.pairs_key_coarse == 1

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracinggpu_tpu.render.realtime import (
+from raytracinggpu.render.realtime import (
     RenderState,
     init_state,
     on_key,
@@ -12,8 +12,8 @@ from raytracinggpu_tpu.render.realtime import (
     reset_accumulation,
     step,
 )
-from raytracinggpu_tpu.scene.presets import build_preset, make_config, wall_spheres
-from raytracinggpu_tpu.scene.scene import build_scene_tables
+from raytracinggpu.scene.presets import build_preset, make_config, wall_spheres
+from raytracinggpu.scene.scene import build_scene_tables
 
 
 def _rt_scene(W=16, H=16, spp=2, depth=2):
@@ -38,7 +38,7 @@ def test_orbit_light_preserves_radius_and_height():
 
 
 def test_step_accumulates_and_display_is_average():
-    from raytracinggpu_tpu.core.vec import Vec3
+    from raytracinggpu.core.vec import Vec3
 
     cfg, tables = _rt_scene()
     st = init_state(cfg, tables, seed=0)
@@ -80,7 +80,7 @@ def test_reset_and_keys():
 
 
 def test_move_object():
-    from raytracinggpu_tpu.render.realtime import move_object
+    from raytracinggpu.render.realtime import move_object
 
     _, tables = _rt_scene()
     t2 = move_object(tables, 1, (1.0, 2.0, -3.0), dt=0.5)
@@ -92,7 +92,7 @@ def test_move_object():
 
 
 def test_checkpoint_resume_bit_identical(tmp_path):
-    from raytracinggpu_tpu.utils.checkpoint import load_state, save_state
+    from raytracinggpu.utils.checkpoint import load_state, save_state
 
     cfg, tables = _rt_scene()
     st = init_state(cfg, tables, seed=3)
@@ -109,7 +109,7 @@ def test_checkpoint_resume_bit_identical(tmp_path):
 
 
 def test_run_loop_smoke(tmp_path):
-    from raytracinggpu_tpu.render.realtime import run_loop
+    from raytracinggpu.render.realtime import run_loop
 
     cfg, tables = _rt_scene()
     state, summary = run_loop(
@@ -130,7 +130,7 @@ def test_run_loop_frames_per_dispatch_bit_identical(tmp_path):
     difference is how many frames ride per device dispatch."""
     import os
 
-    from raytracinggpu_tpu.render.realtime import run_loop
+    from raytracinggpu.render.realtime import run_loop
 
     cfg, tables = _rt_scene()
     a, b = tmp_path / "a", tmp_path / "b"
@@ -140,14 +140,14 @@ def test_run_loop_frames_per_dispatch_bit_identical(tmp_path):
                          print_every=0, frames_per_dispatch=2)
     assert int(st2.frames) == 3 and sum2["frames"] == 3
     assert sorted(os.listdir(a)) == sorted(os.listdir(b))
-    from raytracinggpu_tpu.render.image_io import read_png
+    from raytracinggpu.render.image_io import read_png
 
     for f in os.listdir(a):
         np.testing.assert_array_equal(read_png(a / f), read_png(b / f))
 
 
 def test_steps_batch_matches_sequential():
-    from raytracinggpu_tpu.render.realtime import steps
+    from raytracinggpu.render.realtime import steps
 
     cfg, tables = _rt_scene()
     st_a = init_state(cfg, tables, seed=4)
@@ -167,9 +167,9 @@ def test_checkpoint_loads_pre_mesh_angle_layout(tmp_path):
     import jax
     import numpy as np
 
-    from raytracinggpu_tpu.render.realtime import init_state
-    from raytracinggpu_tpu.scene.presets import build_preset
-    from raytracinggpu_tpu.utils.checkpoint import load_state, save_state
+    from raytracinggpu.render.realtime import init_state
+    from raytracinggpu.scene.presets import build_preset
+    from raytracinggpu.utils.checkpoint import load_state, save_state
 
     cfg, tables = build_preset("realtime", width=16, height=16, spp=1,
                                max_depth=1)

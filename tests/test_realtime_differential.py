@@ -7,11 +7,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracinggpu_tpu.core.vec import Vec3
-from raytracinggpu_tpu.integrator.wavefront import trace
-from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
-from raytracinggpu_tpu.scene.presets import build_preset, wall_spheres
-from raytracinggpu_tpu.render.pipeline import Camera
+from raytracinggpu.core.vec import Vec3
+from raytracinggpu.integrator.wavefront import trace
+from raytracinggpu.oracle.numpy_ref import OracleScene
+from raytracinggpu.scene.presets import build_preset, wall_spheres
+from raytracinggpu.render.pipeline import Camera
 
 
 def _realtime_rays(W, H, cam_c=(0.0, 0.0, 55.0), yaw=0.0, pitch=0.3,
@@ -42,7 +42,7 @@ def _realtime_rays(W, H, cam_c=(0.0, 0.0, 55.0), yaw=0.0, pitch=0.3,
 
 
 def test_realtime_config_matches_oracle(cat_mesh_raw, rng):
-    from raytracinggpu_tpu.scene.mesh import build_mesh, rescale
+    from raytracinggpu.scene.mesh import build_mesh, rescale
 
     obj = cat_mesh_raw
     verts = rescale(obj.vertices, 0.6, (0, -10, 0))
@@ -51,7 +51,7 @@ def test_realtime_config_matches_oracle(cat_mesh_raw, rng):
     cfg, tables = build_preset("realtime", mesh=mesh, traversal="dense")
     W = H = 20
     cfg = dataclasses.replace(cfg, width=W, height=H, spp=1, max_depth=2,
-                              traversal="pallas")
+                              traversal="walk")
 
     # Oracle with smooth normals in ORIGINAL triangle order.
     A = verts[obj.vtx[:, 0]]
@@ -84,7 +84,7 @@ def test_realtime_config_matches_oracle(cat_mesh_raw, rng):
 
     # Also cross-check our raygen against the independent numpy camera.
     cam = Camera.from_yaw_pitch((0.0, 0.0, 55.0), 0.0, 0.3)
-    from raytracinggpu_tpu.render.pipeline import raygen
+    from raytracinggpu.render.pipeline import raygen
 
     Og, ug = raygen(cfg, cam, jnp.zeros(R), jnp.zeros(R))
     np.testing.assert_allclose(
@@ -92,32 +92,30 @@ def test_realtime_config_matches_oracle(cat_mesh_raw, rng):
     )
 
 
-def test_smooth_normals_pallas_matches_dense(cat_mesh_raw):
-    """The pallas fallback's smooth path (_fused_smooth_recovery: one
-    (R,25) row-gather) and the pairs kernel's in-kernel smooth payload
-    must both reproduce the dense oracle's Phong-normal render."""
+def test_smooth_normals_walk_matches_dense(cat_mesh_raw):
+    """The walk kernel's winner (idx, beta, gamma) feeds the same Phong
+    normal recovery as dense, so the smooth-normal render must reproduce
+    the dense reference's."""
     import numpy as np
 
-    from raytracinggpu_tpu.render.pipeline import render_preset_frame
-    from raytracinggpu_tpu.scene.mesh import build_mesh
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.render.pipeline import render_preset_frame
+    from raytracinggpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.presets import build_preset
 
     mesh = build_mesh(cat_mesh_raw)
     imgs = {}
-    for trav in ("dense", "pallas", "pairs"):
+    for trav in ("dense", "walk"):
         cfg, tables = build_preset(
             "realtime", mesh=mesh, width=32, height=32, spp=1, max_depth=2,
             traversal=trav)
         assert cfg.smooth_normals
         imgs[trav], _ = render_preset_frame(tables, cfg, seed=3)
     # Same fraction-based tolerance as the ray-level differential above:
-    # the dense path evaluates MT on the MXU (f32 HIGHEST matmuls) and the
-    # pairs/pallas kernels elementwise on the VPU, so a grazing-edge pixel
-    # can legitimately flip its closest-hit winner and take a different
-    # material branch — bounded by count, not by magnitude.
-    for trav in ("pallas", "pairs"):
-        bad = np.abs(imgs[trav] - imgs["dense"]) > (
-            1e-4 * np.abs(imgs["dense"]) + 2e-2)
-        frac = bad.any(-1).mean()
-        assert frac < 0.01, (
-            f"{trav}: {frac:.2%} pixels disagree with the dense oracle")
+    # dense evaluates MT as a matrix product and the walk as scalar sums,
+    # so a grazing-edge pixel can legitimately flip its closest-hit winner
+    # and take a different material branch — bounded by count, not by
+    # magnitude.
+    bad = np.abs(imgs["walk"] - imgs["dense"]) > (
+        1e-4 * np.abs(imgs["dense"]) + 2e-2)
+    frac = bad.any(-1).mean()
+    assert frac < 0.01, f"{frac:.2%} pixels disagree with the dense oracle"

@@ -13,8 +13,8 @@ diffuse levels (terminates at depth < 0, cpu_launcher.cpp:567), so its
 ``bounces=B`` pairs with this framework's ``max_depth=B+1``.
 
 Slow (compiles C++, renders 512x512 on the CPU backend) — enabled with
-RT_REFERENCE_PARITY=1.  A recorded run against the real binary lives in
-gallery/cpu_parity.json with the two images alongside.
+RT_REFERENCE_PARITY=1.  The two images of a recorded run are in gallery/
+(cpu_parity_reference.png, cpu_parity_ours.png).
 """
 import os
 import shutil
@@ -42,10 +42,10 @@ def test_cpu_launcher_parity(tmp_path):
 
     import jax
 
-    from raytracinggpu_tpu.render.image_io import tonemap
-    from raytracinggpu_tpu.render.pipeline import Camera, render_frame
-    from raytracinggpu_tpu.scene.obj import CAT_OBJ_PATH
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.render.image_io import tonemap
+    from raytracinggpu.render.pipeline import Camera, render_frame
+    from raytracinggpu.scene.obj import CAT_OBJ_PATH
+    from raytracinggpu.scene.presets import build_preset
 
     # Build + run the reference binary in a scratch dir.
     build = tmp_path / "refbuild"

@@ -3,13 +3,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raytracinggpu_tpu.core.rng import (
+from raytracinggpu.core.rng import (
     box_muller_jitter,
     cosine_hemisphere,
     tangent_frame,
     uniform_open0,
 )
-from raytracinggpu_tpu.core.vec import Vec3
+from raytracinggpu.core.vec import Vec3
 
 
 def test_uniform_support():
@@ -67,7 +67,7 @@ def test_cosine_hemisphere_distribution():
 
 
 def test_missing_obj_raises(tmp_path):
-    from raytracinggpu_tpu.scene.obj import read_obj
+    from raytracinggpu.scene.obj import read_obj
 
     try:
         read_obj(str(tmp_path / "nope.obj"))

@@ -1,6 +1,6 @@
-"""Sharded rendering == single-chip BITWISE when the sample-fusion group
-aligns with the sample shard (VERDICT r2 weak item 4), and the PRODUCTION
-pairs kernel running under per-device row shards (weak item 3).
+"""Sharded rendering == single-device BITWISE when the sample-fusion group
+aligns with the sample shard, for the dense reference and for the BVH walk
+kernel running under per-device row shards.
 
 Alignment rule: with cfg.spp_fuse == spp // n_sp, the single-chip path
 scans n_sp fusion groups sequentially (acc = ((0 + G0) + G1) ...) and each
@@ -12,9 +12,9 @@ import jax
 import numpy as np
 import pytest
 
-from raytracinggpu_tpu.parallel.sharding import make_mesh, render_frame_sharded
-from raytracinggpu_tpu.render.pipeline import Camera, render_frame
-from raytracinggpu_tpu.scene.presets import build_preset
+from raytracinggpu.parallel.sharding import make_mesh, render_frame_sharded
+from raytracinggpu.render.pipeline import Camera, render_frame
+from raytracinggpu.scene.presets import build_preset
 
 
 def _render_both(cfg, tables, n_px, n_sp, seed=7):
@@ -36,38 +36,32 @@ def test_sharded_bitwise_when_fuse_aligned(n_px, n_sp, spp):
     np.testing.assert_array_equal(img, ref)
 
 
-def test_sharded_pairs_with_compaction(cat_mesh_raw):
-    """Grouped activity compaction under per-device row shards: the sort/
-    gather/scatter run per shard (no cross-device comm) and compaction is
-    exact, so aligned-fuse sharding stays bitwise equal.  pairs_block is
-    shrunk so the compact capacity (rounded to whole blocks) stays below
-    the per-device ray count — on tiny shards _compact_ok disables
-    compaction, which would leave this path untested."""
-    from raytracinggpu_tpu.scene.mesh import build_mesh
+def test_sharded_walk_lbvh(cat_mesh_raw):
+    """The walk kernel (interpret mode on CPU) over an LBVH-built cat under
+    a (px x sp) mesh: each device walks its own row shard against the
+    replicated tables; aligned fuse -> bitwise equality."""
+    from raytracinggpu.scene.mesh import build_mesh
 
-    mesh_data = build_mesh(cat_mesh_raw)
+    mesh_data = build_mesh(cat_mesh_raw, builder="lbvh")
     cfg, tables = build_preset(
-        "array_bvh", mesh=mesh_data, width=64, height=64, spp=2,
-        max_depth=2, traversal="pairs", spp_fuse=1, pairs_block=128,
-        pairs_compact=0.25, pairs_cluster="sah", pairs_pack="pave",
-        pairs_cut=32,
+        "array_bvh", mesh=mesh_data, width=32, height=32, spp=2,
+        max_depth=2, traversal="walk", spp_fuse=1,
     )
-    assert tables.pairs_mesh is not None
     ref, img = _render_both(cfg, tables, 4, 2)
     np.testing.assert_array_equal(img, ref)
 
 
-def test_sharded_pairs_production_kernel(cat_mesh_raw):
-    """The pairs traversal (interpret mode on CPU) under an (px x sp) mesh:
-    per-device row shards shrink R per device, exercising the SMEM-budget
-    chunk sizing under sharding; aligned fuse -> bitwise equality."""
-    from raytracinggpu_tpu.scene.mesh import build_mesh
+def test_sharded_walk_kernel(cat_mesh_raw):
+    """The walk traversal (interpret mode on CPU) under an (px x sp) mesh:
+    per-device row shards shrink R per device below one kernel block
+    multiple, exercising the padding; aligned fuse -> bitwise equality."""
+    from raytracinggpu.scene.mesh import build_mesh
 
     mesh_data = build_mesh(cat_mesh_raw)
     cfg, tables = build_preset(
-        "array_bvh", mesh=mesh_data, width=16, height=16, spp=2, max_depth=2,
-        traversal="pairs", spp_fuse=1,
+        "array_bvh", mesh=mesh_data, width=20, height=16, spp=2,
+        max_depth=2, traversal="walk", spp_fuse=1,
     )
-    assert tables.pairs_mesh is not None
+    assert tables.walk is not None
     ref, img = _render_both(cfg, tables, 4, 2)
     np.testing.assert_array_equal(img, ref)

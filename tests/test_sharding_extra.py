@@ -3,12 +3,12 @@ scene sharded across the 8-CPU-device mesh."""
 import jax
 import numpy as np
 
-from raytracinggpu_tpu.parallel.sharding import (
+from raytracinggpu.parallel.sharding import (
     initialize_multihost,
     make_mesh,
     render_frame_sharded,
 )
-from raytracinggpu_tpu.render.pipeline import Camera, render_frame
+from raytracinggpu.render.pipeline import Camera, render_frame
 
 
 def test_initialize_multihost_single_process():
@@ -17,13 +17,13 @@ def test_initialize_multihost_single_process():
 
 
 def test_sharded_cat_scene_matches(cat_mesh_raw):
-    from raytracinggpu_tpu.scene.mesh import build_mesh
-    from raytracinggpu_tpu.scene.presets import build_preset
+    from raytracinggpu.scene.mesh import build_mesh
+    from raytracinggpu.scene.presets import build_preset
 
     mesh_data = build_mesh(cat_mesh_raw)
     cfg, tables = build_preset(
         "array_bvh", mesh=mesh_data, width=16, height=16, spp=2, max_depth=2,
-        traversal="pallas",
+        traversal="walk",
     )
     cam = Camera.fixed(cfg.camera_c)
     key = jax.random.PRNGKey(5)

@@ -3,8 +3,8 @@ global_launcher.cu:122-135)."""
 import jax.numpy as jnp
 import numpy as np
 
-from raytracinggpu_tpu.core.vec import Vec3
-from raytracinggpu_tpu.ops.sphere import INF, SphereTable, intersect_spheres
+from raytracinggpu.core.vec import Vec3
+from raytracinggpu.ops.sphere import INF, SphereTable, intersect_spheres
 
 
 def _rays(origins, dirs):
@@ -71,7 +71,7 @@ def test_lowest_id_wins_exact_tie():
 
 
 def test_matches_oracle_random(rng):
-    from raytracinggpu_tpu.oracle.numpy_ref import OracleScene
+    from raytracinggpu.oracle.numpy_ref import OracleScene
 
     spheres = [
         (tuple(rng.uniform(-5, 5, 3)), float(rng.uniform(0.5, 3.0)))

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from raytracinggpu_tpu.core.vec import Vec3, vwhere
+from raytracinggpu.core.vec import Vec3, vwhere
 
 
 def _mk(rng, n=64):
